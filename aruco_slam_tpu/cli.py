@@ -220,6 +220,10 @@ def main(argv=None):
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    if argv is None:  # a command-line run, not a call from Python
+        from aruco_slam_tpu.utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache()
     args.fn(args)
 
 

@@ -14,7 +14,7 @@ Levenberg-Marquardt solver over
 - **odometry factors** z = pose_i ⊖ pose_j between keyframes;
 - a **prior** on pose 0 fixing the gauge.
 
-TPU-first design: the normal equations are never materialized as a big
+Design: the normal equations are never materialized as a big
 sparse matrix. Landmarks are eliminated by the Schur complement — each
 landmark's 3x3 Hll block inverts in closed form, embarrassingly parallel —
 and the reduced camera system S dp = bs is solved matrix-free with
@@ -66,9 +66,9 @@ class BAStats(NamedTuple):
 
 class GatherTables(NamedTuple):
     """Precomputed dense gather tables replacing every ``segment_sum`` in
-    the solver's hot loops. XLA:TPU lowers scatter (segment_sum) to a
-    serial per-update loop; a padded row-index table turns each one into a
-    gather + dense reduction, which is bandwidth-bound. Pad entries point
+    the solver's hot loops: a padded row-index table turns each scatter
+    (segment_sum) into a gather + dense reduction, which is
+    bandwidth-bound. Pad entries point
     one past the end of the source array (a zero row appended before the
     gather), so no masking is needed.
 
@@ -76,19 +76,19 @@ class GatherTables(NamedTuple):
     odo_*_rows [K, Q*]). The landmark reduction is harder: landmark
     popularity is heavily skewed (a well-placed marker is seen by hundreds
     of keyframes while the mean is ~16), so one full-width [L, deg_max]
-    table is mostly padding (measured ~1.4 ms/matvec at 10k/5k), and a
-    capped table + overflow-segment_sum pays the scatter. Two forms ship:
+    table is mostly padding, and a capped table + overflow-segment_sum
+    pays the scatter. Two forms ship:
 
     - DEGREE-CLASS BUCKETED TABLES (default when present): landmarks are
       grouped by ceil-pow2 observation degree, so each class is one
       gather + one dense sum with < 2x padding; tiny classes are merged
       upward to bound the op count (~6 classes at 10k/5k). One final
       gather (lm_rank [L]) restores landmark order from the class-sorted
-      concatenation. 239 us/call vs the scan's 1495 at 10k/5k [N, 3]
-      (benchmarks/_lm_bucket_probe.py) — the scan is op-count-bound
-      (~17 Hillis-Steele passes), not bandwidth-bound. Gather cost is
-      per-ROW (~2 ns/row regardless of row width, benchmarks/
-      _gn_structure_probe.py), so classes wider than ``chunk`` (64) are
+      concatenation. This replaces the segmented scan, which is
+      op-count-bound (~17 Hillis-Steele passes) rather than
+      bandwidth-bound (benchmarks/_lm_bucket_probe.py times both). Gather
+      cost goes by ROW rather than by row width, so classes wider than
+      ``chunk`` (64) are
       stored TWO-LEVEL: a [n_chunks, chunk] row table (each high-degree
       landmark split into chunk-width runs, padding bounded by
       chunk-1 per landmark instead of cap-1) plus a small [n_c, max_runs]
@@ -227,7 +227,7 @@ def build_tables(problem: BAProblem) -> GatherTables:
 
 
 def prepare(problem: BAProblem):
-    """Pack the problem for the TPU solver fast path. Returns
+    """Pack the problem for the solver fast path. Returns
     (packed_problem, tables, static) where ``static`` is a dict of
     Python-level solver options to splat into :func:`solve`:
 
@@ -242,10 +242,9 @@ def prepare(problem: BAProblem):
       :func:`build_tables`.
 
     Everything stays numerically identical to the unpacked solve up to f32
-    summation order. Motivation: XLA:TPU executes scatter serially and
-    [N, 3] gathers at ~140 us per call at the 10k/5k shape, which made the
-    segment_sum formulation scatter/gather-bound (VERDICT round 1 item 8;
-    benchmarks/ba_prims_probe.py)."""
+    summation order. Motivation: the segment_sum formulation is
+    scatter/gather-bound at the 10k/5k shape (benchmarks/ba_prims_probe.py
+    measures the primitives)."""
     import numpy as np
 
     K = np.asarray(problem.poses).shape[0]
@@ -309,8 +308,9 @@ def _seg_sum(vals: Array, ids: Array, num_segments: int, rows):
 
 def _seg_sum_lm(vals: Array, ids: Array, L: int, tables):
     """Landmark-keyed reduction (see GatherTables): degree-class bucketed
-    gather-sums when the tables carry them (6.2x the scan at 10k/5k,
-    benchmarks/_lm_bucket_probe.py), else the sorted segmented scan."""
+    gather-sums when the tables carry them (a few dense ops in place of
+    the scan's ~17 passes, benchmarks/_lm_bucket_probe.py), else the
+    sorted segmented scan."""
     if tables is None:
         return jax.ops.segment_sum(vals, ids, num_segments=L)
     # flatten trailing dims of rank-3+ operands: a [N, 3, 3] operand would
@@ -565,7 +565,7 @@ def _schur_matvec(lin, problem: BAProblem, v, tables=None, kf_width=None,
     v: [K, 3]. With the :func:`prepare` fast path every keyframe-keyed
     reduction is a dense reshape-sum, the chain odometry coupling is two
     shifted pad-adds, and only the landmark side touches index tables —
-    no TPU scatter anywhere in the CG loop."""
+    no scatter anywhere in the CG loop."""
     K = v.shape[0]
     L = lin["Hll_inv"].shape[0]
     kf_rows = tables.kf_rows if tables is not None else None
@@ -607,7 +607,8 @@ def gauge_rotation_mode(poses: Array) -> Array:
     Global map orientation is pinned only through the odometry chain back to
     the pose-0 prior, so this mode's curvature is orders of magnitude below
     the rest of the spectrum and block-Jacobi CG crawls along it
-    (docs/PERFORMANCE.md 'BA convergence note'). Per keyframe k the
+    (tests/test_ba.py::test_gauge_deflation_recovers_flat_mode). Per
+    keyframe k the
     infinitesimal generator is d(x_k, y_k, th_k)/d(phi) =
     (-(y_k - y_0), x_k - x_0, 1). Normalized."""
     d = poses[:, :2] - poses[0, :2]
@@ -695,10 +696,10 @@ def solve(
     Returns (poses, landmarks, BAStats).
 
     ``unroll``: emit the GN loop as straight-line code instead of
-    ``lax.scan``. Same math and history; at the 10k/5k config-5 shape the
-    scan boundary costs a measured ~1.5 ms/GN in layout round-trips
-    (benchmarks/_gn_structure_probe.py), so the throughput benchmarks
-    unroll. Compile time scales with ``iters``; keep the scan (default)
+    ``lax.scan``. Same math and history; the scan boundary can add layout
+    round-trips of the carried state per GN iteration
+    (benchmarks/_gn_structure_probe.py measures it), so the throughput
+    benchmarks unroll. Compile time scales with ``iters``; keep the scan (default)
     for large ``iters`` or when compile latency matters. Applies to the
     NON-adaptive path only: ``adaptive=True`` always uses ``lax.scan``
     (its accept/reject carry gains nothing from unrolling) and silently
@@ -706,9 +707,8 @@ def solve(
 
     ``tables`` (:func:`build_tables`): precomputed gather tables that
     replace every segment_sum/scatter in the solver with padded gather-sums
-    — XLA:TPU executes scatter as a serial update loop, which dominated the
-    10k/5k profile (VERDICT round 1 item 8). Results are identical up to
-    f32 summation order.
+    (see :class:`GatherTables`). Results are identical up to f32
+    summation order.
 
     ``adaptive``: LM accept/reject — re-evaluate the cost after each step;
     on increase, reject the step and raise the damping 10x (capped), on

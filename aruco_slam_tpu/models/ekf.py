@@ -1,9 +1,9 @@
-"""EKF-SLAM core (L1) — TPU-native re-design of the reference estimator.
+"""EKF-SLAM core (L1) — a JAX re-design of the reference estimator.
 
 Reimplements the joint pose+landmark EKF of ``ArucoSlam`` (reference
 src/aruco_slam.cpp): *predict* from differential-drive encoders
 (``addEncoder``, :12-74) and sequential per-marker *update* with online
-landmark augmentation (``addImage``, :76-287) — but TPU-first:
+landmark augmentation (``addImage``, :76-287) — for static-shape XLA:
 
 - **Fixed-capacity masked state.** The reference grows ``mu_``/``sigma_``
   dynamically (src/aruco_slam.cpp:215-225,246-253); XLA needs static shapes,
@@ -219,7 +219,7 @@ def predict_compose(pose0, initialized, controls: Control, config: SlamConfig):
     pose mean and the folded 3x3 covariance transform
     ``sigma' = blockdiag(A, I) sigma blockdiag(A, I)^T + blockdiag(Q, 0)``
     — the cheap sequential part of :func:`predict_block`, exposed so the
-    batched Pallas frame kernel can apply the big-sigma touch on-chip."""
+    batched Triton frame kernel can apply the big-sigma touch itself."""
     odom = config.odom
     cov = config.covariance
     dtype = pose0.dtype
@@ -286,8 +286,7 @@ def _slot_selector(slot, n_dim, dtype):
     """One-hot row selector E [3, N] for landmark ``slot``'s block.
 
     Replaces dynamic_slice/gather: E @ x reads the block, E.T @ y writes it.
-    Under vmap these become batched matmuls (MXU) instead of gathers —
-    the reason batched replay scales."""
+    Under vmap these become batched matmuls instead of gathers."""
     idx = 3 + 3 * slot
     iota = jnp.arange(n_dim, dtype=jnp.int32)
     return (iota[None, :] == (idx + jnp.arange(3, dtype=jnp.int32))[:, None]).astype(dtype)
@@ -334,8 +333,8 @@ def _known_landmark_update(mu, sigma, mu0, slot, z, Rk, seen_prev, last_obs, cfg
     B = Gp @ sig_pose + Gl @ sig_lm  # [3, N] = Gx sigma
     S = B[:, :3] @ Gp.T + (B @ E.T) @ Gl.T + Rk.astype(dtype)
     # K = sigma Gx^T S^-1 = B^T S^-1 (sigma symmetric, S symmetric);
-    # closed-form 3x3 solve (batched LU is loop-lowered on TPU) instead of
-    # the reference's explicit .inverse() (:146).
+    # closed-form 3x3 solve (batched LU lowers to a sequential loop)
+    # instead of the reference's explicit .inverse() (:146).
     K = linalg.solve3x3(S, B).T  # [N, 3]
 
     # Divergence check — log-only in the reference (:156-175), optionally a
@@ -596,8 +595,8 @@ def update_fused(state: EkfState, frame: FrameObservations, config: SlamConfig) 
     to f32 tolerance (tests/test_fused_update.py). Requires at most one
     observation per marker id per frame (duplicate ids would alias subspace
     columns); the front-end guarantees this. Motivation: the sequential
-    scan is dispatch-latency-bound on TPU — 16 dependent [N, N] updates per
-    frame dominate the replay step (docs/PERFORMANCE.md).
+    scan makes 16 dependent [N, N] updates per frame; this form makes one,
+    which pays at large maps.
     """
     max_lm = config.ekf.max_landmarks
     M = frame.ids.shape[0]

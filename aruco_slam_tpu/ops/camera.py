@@ -1,6 +1,6 @@
 """Pinhole camera model with Brown-Conrady distortion (L0).
 
-TPU-native replacement for the OpenCV calib3d entry points the reference
+JAX replacement for the OpenCV calib3d entry points the reference
 uses: ``cv::projectPoints`` (src/aruco_slam.cpp:441, reprojection-error
 covariance) and the implicit undistortion inside
 ``cv::aruco::estimatePoseSingleMarkers`` (src/aruco_slam.cpp:314).
@@ -89,7 +89,7 @@ def undistort_normalized(pts: Array, dist: Array, iters: int = 8) -> Array:
     """Invert Brown-Conrady distortion by fixed-point iteration.
 
     Same scheme as OpenCV's ``undistortPoints`` inner loop; ``iters`` is a
-    static trip count so the loop unrolls/compiles cleanly on TPU.
+    static trip count so the loop unrolls and fuses.
     """
     k1, k2, p1, p2, k3 = dist[..., 0], dist[..., 1], dist[..., 2], dist[..., 3], dist[..., 4]
     xd, yd = pts[..., 0], pts[..., 1]

@@ -1,10 +1,10 @@
-"""ArUco marker detection (L2) — TPU-native replacement for OpenCV's
+"""ArUco marker detection (L2) — JAX replacement for OpenCV's
 ``cv::aruco::detectMarkers`` (reference src/aruco_slam.cpp:313).
 
 OpenCV's CPU pipeline (adaptive threshold -> contour walk -> polygon
 approximation -> warp -> Otsu -> dictionary lookup) is irregular and
-data-dependent; this is a static-shape reformulation that maps onto the
-VPU/MXU (SURVEY.md section 7.4 item 1):
+data-dependent; this is a static-shape reformulation that XLA compiles
+to dense array work (SURVEY.md section 7.4 item 1):
 
 1. **Adaptive threshold** — windowed mean via an integral image (two
    cumsums + 4 shifted reads, O(HW)), then ``img < mean - C``.
@@ -28,7 +28,6 @@ Everything is jit/vmap-safe with fixed shapes: a frame in, fixed-K
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -42,42 +41,38 @@ Array = jax.Array
 
 @dataclass(frozen=True)
 class DetectorConfig:
-    # Candidate slots per source. 16 (round 5): the chain/subpix/decode
-    # stages scale linearly in slots and 16 measured 1.027 vs 24's
-    # 1.210 ms/frame saturated with net-equal recall (full sweep:
-    # noise_s25 21 -> 20 hits, blur_s3 10 -> 11, rest identical; all 10
-    # conditions still >= cv2 and >= round 4, external leg 14/14, zero
-    # false positives — benchmarks/_k16_cost_probe.py). Raise for scenes
-    # with more than ~16 markers in view at once.
+    # Candidate slots per source. The chain/subpix/decode stages scale
+    # linearly in slots; 16 has net-equal recall to 24 on the parity sweep
+    # (noise_s25 21 -> 20 hits, blur_s3 10 -> 11, rest identical; all 10
+    # conditions still >= cv2, external leg 14/14, zero false positives —
+    # benchmarks/_k16_cost_probe.py). Raise for scenes with more than ~16
+    # markers in view at once.
     max_candidates: int = 16
     adaptive_radius: int = 7  # window = 2r+1 (OpenCV winSize 15 mid-sweep)
     # Windowed mean for the adaptive threshold computed on a
     # mean_stride-block-reduced image and nearest-upsampled: the full-res
-    # integral image is 2 log-pass cumsums over padded [H, W] f32 (~1
-    # ms/frame at batch); the block-reduced one is 1/stride^2 of that.
+    # integral image is 2 log-pass cumsums over padded [H, W] f32; the
+    # block-reduced one is 1/stride^2 of that work.
     # The mean is a smooth field — stride 4 leaves recall unchanged on the
     # parity sweep. 1 = exact full-res integral image.
     mean_stride: int = 4
     # Optional multi-scale sweep (OpenCV sweeps winSize 3..23 step 10):
     # candidates from every radius are decoded together and deduped by id.
-    # Measured round 5 (benchmarks/_radii_sweep_check.py, radii (3,7,11)):
-    # +2 noise_s25 / +1 blur_s1 / +3 blur+noise hits over the shipped
-    # single-radius+closing-union default, but it admits 2 FALSE
-    # detections across the 10-condition sweep (shipped default has zero,
-    # like cv2) and costs 3.295 vs 1.213 ms/frame saturated (2.7x, at the
-    # 24-slot budget — benchmarks/_radii_cost_probe.py) — so the sweep
-    # stays OFF by
-    # default; the machinery is here for callers that prefer recall over
-    # the zero-false-positive guarantee.
+    # On the parity sweep (benchmarks/_radii_sweep_check.py, radii
+    # (3,7,11)) it adds +2 noise_s25 / +1 blur_s1 / +3 blur+noise hits over
+    # the shipped single-radius+closing-union default, but admits 2 FALSE
+    # detections across the 10-condition sweep (the default has zero, like
+    # cv2) and runs the detector once per radius — so the sweep stays OFF
+    # by default; the machinery is here for callers that prefer recall
+    # over the zero-false-positive guarantee.
     adaptive_radii: tuple = ()  # empty = single adaptive_radius
     adaptive_C: float = 7.0
     # Variable-resolution input: frames whose [H, W] is not an exact
     # bucket are edge-padded up to the smallest enclosing bucket, so a
     # resolution change costs at most one compile per bucket, not one per
     # shape (the reference accepts whatever CameraInfo describes —
-    # /root/reference/src/aruco_slam_node.cpp parseCameraInfo). Buckets
-    # are (8, 128)-tile-aligned so the fused Pallas threshold+CCL kernel
-    # stays engaged. Empty tuple = compile per exact shape.
+    # reference src/aruco_slam_node.cpp parseCameraInfo). Empty tuple =
+    # compile per exact shape.
     shape_buckets: tuple = ((480, 640), (720, 1280), (1080, 1920))
     # CCL rounds: one 8-neighbor min + 4 directional segmented run-scans
     # each. A label travels one component "turn" per round; marker scenes
@@ -87,35 +82,24 @@ class DetectorConfig:
     # (e.g. the scipy-oracle test's dilated random blobs) need 8 — callers
     # of the label_components primitive pick their own trip count.
     ccl_rounds: int = 3
-    # CCL backend: None = auto (Pallas VMEM-resident kernel on TPU for
-    # (8,128)-tile-aligned frames, XLA scans otherwise); True/False force.
-    use_pallas_ccl: bool | None = None
     min_component_pixels: int = 80
     max_component_fraction: float = 0.2
     # Component stats (counts/bboxes/root table) are computed on a
-    # stride-subsampled grid: XLA:TPU lowers scatter to a *serial* update
-    # loop, so the full-resolution scatters cost ~19 ms/frame while the
-    # stride-4 grid costs <1 ms (benchmarks/quads_micro_probe.py). Exact
-    # pixel-count filtering is restored per candidate from its gathered
-    # label window. Components thinner than the stride in BOTH axes can be
+    # stride-subsampled grid, 1/stride^2 of the full-resolution sort and
+    # scans. Exact pixel-count filtering is restored per candidate from
+    # its gathered label window. Components thinner than the stride in BOTH axes can be
     # missed — decodable markers are filled quads far above that.
     stats_stride: int = 4
-    # Candidate selection via jax.lax.approx_max_k (TPU-optimized;
-    # recall_target 0.99 per candidate over the subsampled stats grid).
-    # False = exact lax.top_k.
-    approx_topk: bool = True
     # Corner extraction samples a [W, W] window per candidate (strided when
     # the component is larger) instead of masking the full image — bounds
-    # peak memory to [batch, K, W^2] and lets image-level replay run at
-    # batch 64. Round 5: the chain measured 9.2 us/candidate dominated by
-    # the [W, W] window ops; W=96 is recall-identical to 128 on the parity
+    # peak memory to [batch, K, W^2]. The chain's cost is dominated by the
+    # [W, W] window ops; W=96 is recall-identical to 128 on the parity
     # sweep (mid-size markers take stride 2, +-1 px quantization the
     # subpix refine recovers) while W=64 regressed blur_s2/noise_s25 and
     # admitted false positives.
     corner_window: int = 96
     # 2x2 samples per cell: recall-identical to 3x3 on the full parity
-    # sweep while cutting the decode stage's gather count 2.25x (gathers
-    # execute ~serially on TPU).
+    # sweep while cutting the decode stage's gather count 2.25x.
     cell_samples: int = 2
     # Keep samples inside the central (1 - 2*margin) of each cell: at far
     # range a cell is ~2 px, and a sample 1/6 cell from the boundary has
@@ -176,14 +160,14 @@ class DetectorConfig:
     # Retry slots actually decoded: candidates that are quad-valid but
     # decode-failed are compacted to the front and only the first
     # ``retry_budget`` get the dense re-decode — a typical frame has 0-3
-    # such candidates, and the dense pass costs ~25 us/slot in gathers
-    # (full-width retry measured +0.59 ms/frame at batch 32; budget 8
-    # +0.27). Budget 4 matched budget 8's recall on every measured
-    # condition (benchmarks/_retry_budget_check.py). Overflow slots keep
-    # their pass-1 failure.
+    # such candidates, and the dense pass is a chain of near-serial
+    # gathers whose cost grows with every slot decoded. Budget 4 matched
+    # budget 8's recall on every condition of the parity sweep
+    # (benchmarks/_retry_budget_check.py). Overflow slots keep their
+    # pass-1 failure.
     retry_budget: int = 4
-    # Closed-source slots that continue into the corner chain: the chain
-    # costs ~9 us/candidate (the dominant union cost), and most closed
+    # Closed-source slots that continue into the corner chain: the chain's
+    # cost grows with each candidate (the dominant union cost), and most closed
     # candidates duplicate a raw one. A STATS-level pre-dedup (bbox within
     # subsample quantization AND count within 15%) marks those, then the
     # survivors — fragment merges change bbox or count by construction —
@@ -288,10 +272,9 @@ def label_components(fg: Array, rounds: int, init: Array | None = None) -> Array
     segmented min scans along rows and columns in both directions (spreads a
     label across whole runs at once). A label travels roughly one component
     "turn" per round, so rounds bounds the number of staircase turns in the
-    worst geodesic, not its pixel length. Pure rolls/scans — no gathers: the
-    previous pointer-jumping formulation (label <- label[label]) spent
-    ~120 ms/frame in 48 full-image random gathers on TPU; this one is
-    bandwidth-bound.
+    worst geodesic, not its pixel length. Pure rolls/scans — no gathers,
+    unlike pointer jumping (label <- label[label]), which needs full-image
+    random gathers; this one is bandwidth-bound.
 
     ``init`` ([H, W] int32): optional warm-start labels — the
     closing-union's closed-mask pass seeds with the converged RAW labels,
@@ -365,10 +348,9 @@ def _component_stats_multi(labels_list, fg_list, cfg: DetectorConfig):
 
     Keyed by each pixel's component root (its full-res flat index): only
     the stride^2-subsampled pixels contribute, so two roots in one stride
-    cell can never merge their stats (ADVICE round 2). XLA:TPU lowers
-    scatter to a serial update loop (~0.2 ms/frame for a [H*W] count
-    table), so the counts come from a bitonic sort + log-scans instead —
-    all dense VPU work (round 3).
+    cell can never merge their stats (ADVICE round 2). The counts come
+    from a sort + log-scans instead of a scatter into an [H*W] count
+    table — all dense array work.
 
     Returns a list of (roots, bbox, cand_valid, count_ds) per source."""
     h, w = fg_list[0].shape
@@ -410,23 +392,14 @@ def _component_stats_multi(labels_list, fg_list, cfg: DetectorConfig):
     for s in range(S):
         ok_s = ok & (sk >= s * n) & (sk < (s + 1) * n) if S > 1 else ok
         score = jnp.where(ok_s, counts_end, 0)
-        if cfg.approx_topk:
-            # TPU-optimized approximate top-k (exact fallback elsewhere);
-            # recall per element 0.99 over the segment-end array
-            svals, idx_k = jax.lax.approx_max_k(
-                score.astype(jnp.float32), cfg.max_candidates,
-                recall_target=0.99,
-            )
-            cand_valid = svals > 0
-        else:
-            svals, idx_k = jax.lax.top_k(score, cfg.max_candidates)
-            cand_valid = svals > 0
+        svals, idx_k = jax.lax.top_k(score, cfg.max_candidates)
+        cand_valid = svals > 0
         roots = (sk[idx_k] - s * n).astype(jnp.int32)  # segment key IS root
         # a sentinel-segment slot (all-bg frame) must not alias a real root
         roots = jnp.where(cand_valid, roots, nbig)
 
         # per-candidate bbox from the source's subsampled grid: [K, hs*ws]
-        # masked min/max — dense VPU reductions, no scatter
+        # masked min/max — dense reductions, no scatter
         sel = (cells[s][None, :] == roots[:, None]) & fgs[s][None, :]
         bb_minx = jnp.min(jnp.where(sel, px_x[None, :], nbig), axis=1)
         bb_maxx = jnp.max(jnp.where(sel, px_x[None, :], -1), axis=1)
@@ -587,13 +560,11 @@ def quads_from_candidates(
 def extract_quads(labels: Array, fg: Array, cfg: DetectorConfig):
     """Top-K components by size -> 4 corner points each.
 
-    TPU-friendly formulation (VERDICT round 1 items 1/2; see
-    benchmarks/quads_micro_probe.py for the measurements that shaped it):
+    Scatter-free formulation (VERDICT round 1 items 1/2):
 
     - Component stats (size score, bbox) are sort-reduced over a
       ``stats_stride``-subsampled pixel set keyed by the component *root*
-      (full-res flat index) — XLA:TPU serializes scatter updates, so the
-      counts come from a bitonic sort + log-scans instead
+      (full-res flat index); the counts come from a sort + log-scans
       (:func:`component_candidates`).
     - Per candidate, one fixed ``corner_window``^2 label window is gathered
       with two 1-D ``take``s (row gather then lane gather — far cheaper
@@ -729,9 +700,7 @@ def refine_corners_subpix(
     Gather-free formulation: every sample position in the window shares the
     corner's fractional offset (the grid offsets are integers), so one
     ``dynamic_slice`` patch per corner per iteration provides every bilinear
-    field as four *static* shifted slices — no per-point gathers (XLA:TPU
-    executes scalar gathers serially; the old per-sample `_bilinear` cost
-    ~4 ms/frame at batch, benchmarks/detector_stage_probe.py). Border
+    field as four *static* shifted slices — no per-point gathers. Border
     semantics approximately match the old per-sample coordinate clipping:
     edge padding returns the border pixel where clipping to w-1.001 blended
     the last two pixels 0.999/0.001 — results can differ slightly within
@@ -776,11 +745,9 @@ def refine_corners_subpix(
             fx = qc[0] - base[0]
             fy = qc[1] - base[1]
             # Two-step patch extraction: full-width row slab first, then
-            # the column window. A vmapped 2-D dynamic_slice lowers to a
-            # scalar-serialized gather (~6 ns/element); a full-width row
-            # slice rides XLA:TPU's wide-row take fast path instead
-            # (measured on the corner-window stage, PERFORMANCE.md item
-            # 17/18). Same elements, bit-identical results.
+            # the column window, instead of a vmapped 2-D dynamic_slice
+            # (an elementwise gather). Same elements, bit-identical
+            # results.
             rows = jax.lax.dynamic_slice(
                 x, (base[1].astype(jnp.int32) + pad - window - 1, 0),
                 (P, x.shape[1]),
@@ -835,50 +802,9 @@ def refine_corners_subpix(
     return refined.reshape(corners.shape)
 
 
-def _label_components_dispatch(fg: Array, cfg: DetectorConfig) -> Array:
-    """Pick the CCL backend: the VMEM-resident Pallas kernel on TPU
-    (0.65 ms/frame vs 14 ms for the XLA scan formulation at 640x480 —
-    benchmarks/ccl_pallas_probe.py; results bit-identical), the XLA
-    scan version elsewhere or for tile-unaligned shapes."""
-    h, w = fg.shape
-    use_pallas = cfg.use_pallas_ccl
-    if use_pallas is None:
-        use_pallas = (
-            jax.default_backend() == "tpu" and h % 8 == 0 and w % 128 == 0
-            and h * w <= _PALLAS_CCL_MAX_PIXELS
-        )
-    if use_pallas:
-        from aruco_slam_tpu.ops.kernels import ccl as ccl_kernel
-
-        return ccl_kernel.label_components_tpu(fg, cfg.ccl_rounds)
-    return label_components(fg, cfg.ccl_rounds)
-
-
 def _threshold_and_label(img: Array, radius: int, cfg: DetectorConfig):
-    """Threshold + CCL, fused into one Pallas megakernel on TPU (one HBM
-    read of the image; the fg mask never round-trips through HBM) —
-    bit-identical to the XLA pair, which runs elsewhere."""
-    h, w = img.shape
-    stride = max(cfg.mean_stride, 1)
-    # The fused kernel's block mean is b * (1/(s*s)), which is bit-equal to
-    # the XLA path's division only when s*s is a power of two — gate the
-    # "bit-identical" contract on that (ADVICE round 2).
-    pow2 = (stride & (stride - 1)) == 0
-    aligned = (
-        h % 8 == 0 and w % 128 == 0 and h % stride == 0 and w % stride == 0
-        and pow2
-    )
-    use_pallas = cfg.use_pallas_ccl
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and aligned and h * w <= _PALLAS_CCL_MAX_PIXELS:
-        from aruco_slam_tpu.ops.kernels import ccl as ccl_kernel
-
-        return ccl_kernel.threshold_label_tpu(
-            img, radius, cfg.adaptive_C, stride, cfg.ccl_rounds
-        )
     fg = adaptive_threshold(img, radius, cfg.adaptive_C, cfg.mean_stride)
-    return fg, _label_components_dispatch(fg, cfg)
+    return fg, label_components(fg, cfg.ccl_rounds)
 
 
 def binary_close3(fg: Array) -> Array:
@@ -887,7 +813,7 @@ def binary_close3(fg: Array) -> Array:
     Border convention: out-of-image reads as background for the dilation
     and as foreground for the erosion, so content touching the frame edge
     is neither grown past it nor eaten by it. Pure shifts + logical ops —
-    fuses into the surrounding elementwise graph on TPU."""
+    fuses into the surrounding elementwise graph."""
     h, w = fg.shape
     ri = jnp.arange(h)[:, None]
     ci = jnp.arange(w)[None, :]
@@ -917,66 +843,10 @@ def binary_close3(fg: Array) -> Array:
     return ero
 
 
-# Largest frame (pixels) the VMEM-resident CCL kernels compile for:
-# 1280x720 measured OK on TPU v5e; 1920x1080 fails Mosaic compilation in
-# EVERY variant — fused union, fused single, and bare CCL — the working
-# set (label image + shifted temporaries + threshold fields, each
-# 8.3 MB f32/i32 at 2.07 MP) exceeds VMEM even at a 100 MB limit
-# ("register allocator spill slots", benchmarks/_p1080b_probe.py; a
-# latent crash for 1080p input since round 2, caught on-device round 5).
-# Frames past the ceiling take the XLA scan formulation — slower but
-# shape-unbounded. Override to probe.
-_PALLAS_CCL_MAX_PIXELS = int(
-    os.environ.get("ARUCO_SLAM_PALLAS_CCL_MAX_PIXELS", 1280 * 720)
-)
-# Separate (smaller-or-equal) ceiling for the FUSED union kernel, which
-# holds two label images at once; equal to the single-kernel ceiling at
-# the stock buckets (both 720p-OK / 1080p-fail on v5e).
-_UNION_KERNEL_MAX_PIXELS = int(
-    os.environ.get("ARUCO_SLAM_UNION_KERNEL_MAX_PIXELS", 1280 * 720)
-)
-
-
 def _union_masks_and_labels(img: Array, radius: int, cfg: DetectorConfig):
-    """(fg, labels, fg_closed, labels_closed) for the closing-union source:
-    ONE Pallas launch on TPU (threshold + 3x3 close + both CCLs, one HBM
-    image read — the unfused triple cost +0.45 ms/frame, VERDICT r4), the
-    stage-by-stage XLA path elsewhere. Bit-identical by construction."""
-    h, w = img.shape
-    stride = max(cfg.mean_stride, 1)
-    pow2 = (stride & (stride - 1)) == 0
-    aligned = (
-        h % 8 == 0 and w % 128 == 0 and h % stride == 0 and w % stride == 0
-        and pow2
-    )
-    use_pallas = cfg.use_pallas_ccl
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and aligned and h * w <= _PALLAS_CCL_MAX_PIXELS:
-        from aruco_slam_tpu.ops.kernels import ccl as ccl_kernel
-
-        # The FUSED union kernel holds both label images + close scratch
-        # in VMEM at once; should a frame size ever fit the single-image
-        # kernel but not the fused one (none of the stock buckets do —
-        # both ceilings measured at 720p-OK/1080p-fail), the staged tier
-        # below covers it: fused raw kernel + XLA 3x3 close + the SEEDED
-        # single-image CCL kernel — same results, one extra fg HBM
-        # round-trip.
-        if h * w <= _UNION_KERNEL_MAX_PIXELS:
-            return ccl_kernel.threshold_label_union_tpu(
-                img, radius, cfg.adaptive_C, stride, cfg.ccl_rounds,
-                cfg.closed_ccl_rounds,
-            )
-        fg, labels = ccl_kernel.threshold_label_tpu(
-            img, radius, cfg.adaptive_C, stride, cfg.ccl_rounds
-        )
-        fg_c = binary_close3(fg)
-        labels_c = ccl_kernel.label_components_tpu(
-            fg_c, cfg.closed_ccl_rounds, init=labels.reshape(fg.shape)
-        )
-        return fg, labels, fg_c, labels_c
-    fg = adaptive_threshold(img, radius, cfg.adaptive_C, cfg.mean_stride)
-    labels = _label_components_dispatch(fg, cfg)
+    """(fg, labels, fg_closed, labels_closed) for the closing-union
+    source."""
+    fg, labels = _threshold_and_label(img, radius, cfg)
     fg_c = binary_close3(fg)
     # closed pass seeded with the converged raw labels (see
     # label_components): only bridge-crossing work remains
@@ -1090,8 +960,8 @@ def detect_markers(
         # differ by many pixels and survive. Compacting here keeps the
         # per-frame candidate count at the raw slot budget, so the union
         # costs one extra CCL+stats+chain pass instead of doubling
-        # subpix+decode too (measured 1.9x frame cost when deduped after
-        # decode: image-level 534 vs 731 frames/s/chip).
+        # subpix+decode too (deduping after decode would run both stages
+        # on twice the candidates).
         cq = jnp.concatenate(clo_q)
         cv = jnp.concatenate(clo_v)
         # Elementwise (alignment-sensitive) quad distance, DELIBERATELY:
@@ -1139,9 +1009,9 @@ def detect_markers(
         # Retry pass for pass-1 decode misses (dict miss OR border
         # overrun): denser sampling + per-sample vote, only for
         # quad-valid candidates, compacted to a fixed ``retry_budget``
-        # (the dense pass costs ~25 us/slot of ~serial gathers; decoding
-        # all K slots measured +0.59 ms/frame at batch 32 vs +0.2 at
-        # budget 8). The pass-1 winners keep their results bit-identically.
+        # (the dense pass is a chain of near-serial gathers per slot, so
+        # decoding all K slots would cost K / budget times as much). The
+        # pass-1 winners keep their results bit-identically.
         from dataclasses import replace as _dc_replace
 
         retry_cfg = _dc_replace(

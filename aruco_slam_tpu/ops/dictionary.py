@@ -1,4 +1,4 @@
-"""ArUco marker dictionaries (L2) — TPU-native replacement for OpenCV's
+"""ArUco marker dictionaries (L2) — JAX replacement for OpenCV's
 ``cv::aruco::getPredefinedDictionary`` (reference src/aruco_slam.cpp:11-12)
 and the dictionary-lookup stage of ``detectMarkers`` (:313).
 
@@ -11,7 +11,7 @@ code words
 
 giving 1024 markers. Verified bit-exact against OpenCV's bytesList in
 tests/test_detector.py. Matching is a single [K, 25] x [25, 4096] matmul
-(all 4 rotations of all 1024 codes) — MXU-friendly, one shot per frame.
+(all 4 rotations of all 1024 codes), one shot per frame.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Vision front-end orchestration (L2): corners -> gated EKF observations.
 
-TPU-native counterpart of ``ArucoSlam::getObservations``
+JAX counterpart of ``ArucoSlam::getObservations``
 (reference src/aruco_slam.cpp:307-376) minus the detector itself (see
 ``ops.detector``): batched PnP over a frame's markers, the distance gate,
 the reprojection-error covariance heuristic with its norm gate, and the

@@ -1,6 +1,6 @@
 """Planar / 3-D geometry primitives (L0).
 
-TPU-native counterparts of the geometry the reference delegates to Eigen,
+JAX counterparts of the geometry the reference delegates to Eigen,
 tf2 and OpenCV:
 
 - ``wrap_angle``       — reference ``ArucoSlam::normAngle`` (src/aruco_slam.cpp:412-421)
@@ -106,7 +106,7 @@ def se2_relative(a: Array, b: Array) -> Array:
 def rodrigues(rvec: Array) -> Array:
     """Axis-angle rotation vector -> 3x3 rotation matrix.
 
-    TPU-native replacement for ``cv::Rodrigues`` (src/aruco_slam.cpp:354).
+    Replacement for ``cv::Rodrigues`` (src/aruco_slam.cpp:354).
     Batched over leading dims; safe at theta -> 0 via the series form.
     """
     rvec = jnp.asarray(rvec)

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot compute paths."""
+"""Pallas kernels (Triton route) for the batched replay frame step."""

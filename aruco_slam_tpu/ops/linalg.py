@@ -1,9 +1,9 @@
-"""Small fixed-size linear algebra, unrolled for the VPU (L0).
+"""Small fixed-size linear algebra, unrolled (L0).
 
 ``jnp.linalg.solve``/``inv`` lower to LU with pivoting — a sequential loop
-program that is catastrophically slow for *batched tiny* systems on TPU
-(every EKF update solves a 3x3, every PnP iteration a 6x6, every BA
-landmark block inverts a 3x3). These closed-form / unrolled versions are
+program, a poor fit for *batched tiny* systems (every EKF update solves
+a 3x3, every PnP iteration a 6x6, every BA landmark block inverts a
+3x3). These closed-form / unrolled versions are
 pure arithmetic: they fuse, vectorize, and vmap with zero control flow.
 """
 

@@ -1,6 +1,6 @@
 """Planar square PnP + observation extraction (L2 front-end math).
 
-TPU-native replacement for ``cv::aruco::estimatePoseSingleMarkers``
+JAX replacement for ``cv::aruco::estimatePoseSingleMarkers``
 (reference src/aruco_slam.cpp:314) and the downstream observation math of
 ``ArucoSlam::getObservations`` (src/aruco_slam.cpp:325-374) and
 ``ArucoSlam::CalculateCovariance`` (src/aruco_slam.cpp:437-471).
@@ -9,7 +9,7 @@ Design: instead of per-marker iterative C++ PnP we use a closed-form
 homography decomposition (Zhang) for initialization followed by a
 fixed-trip-count Gauss-Newton refinement on the reprojection residual —
 fully batched with ``vmap`` so a frame's markers (and a batch of frames)
-solve in one fused XLA computation on the VPU/MXU.
+solve in one fused XLA computation.
 
 Corner order matches the reference's object points (aruco_slam.h:189):
 top-left, top-right, bottom-right, bottom-left on the z=0 plane,
@@ -55,7 +55,7 @@ def _homography_init(corners_norm: Array, obj_xy: Array, marker_length):
     ``obj_xy [4, 2]`` planar object coords (square, TL/TR/BR/BL). Returns
     (R, t). The homography comes from the closed-form unit-square mapping
     (ops.linalg.homography_unit_square) composed with the affine unit->object
-    map — no 8x8 LU solve (batched LU is a sequential-loop disaster on TPU).
+    map — no 8x8 LU solve (batched LU lowers to a sequential pivoting loop).
     """
     dtype = corners_norm.dtype
     Hu = linalg.homography_unit_square(corners_norm)
@@ -79,8 +79,8 @@ def _homography_init(corners_norm: Array, obj_xy: Array, marker_length):
     r1, r2, t = r1 * flip, r2 * flip, t * flip
     # Orthonormalize onto SO(3). A symmetrized Gram-Schmidt (split the
     # in-plane correction evenly between r1 and r2, as in Zhang's method)
-    # instead of an SVD polar projection: SVD lowers to a huge iterative
-    # program on TPU (slow compile + slow run) and the subsequent
+    # instead of an SVD polar projection: SVD lowers to a large iterative
+    # program (slow to compile and to run batched) and the subsequent
     # Gauss-Newton refinement absorbs the sub-degree difference anyway.
     r1n = r1 / jnp.linalg.norm(r1, axis=-1, keepdims=True)
     r2o = r2 - jnp.sum(r2 * r1n, axis=-1, keepdims=True) * 0.5 * r1n

@@ -77,8 +77,7 @@ class ShardedBAProblem(NamedTuple):
     The table fields carry the shard-local solver fast path (same design
     as models.ba.GatherTables): kf_rows turns the keyframe-keyed segment
     sums into padded gather-sums, lm_sort_rows/lm_flags/lm_ends drive the
-    sorted-segmented-scan landmark reduction — XLA:TPU executes scatter as
-    a serial update loop, so these matter exactly as much inside the
+    sorted-segmented-scan landmark reduction, the same tables inside the
     shard_map as on one device."""
 
     poses: Array  # [K, 3] replicated
@@ -108,8 +107,8 @@ def partition_problem(problem: BAProblem, n_shards: int) -> tuple[ShardedBAProbl
     Assignment is LPT (longest-processing-time) on observation counts with
     a per-shard landmark capacity: per-shard work between collectives is
     proportional to owned observations, and round-1's contiguous blocks
-    left a 1.22x max/mean imbalance on the 10k/5k problem (results.json
-    ``scaling.work_balance``); LPT brings it to ~1.00."""
+    left a 1.22x max/mean imbalance on the 10k/5k problem
+    (benchmarks/scaling.py ``work_balance``); LPT brings it to ~1.00."""
     L = problem.landmarks.shape[0]
     Ls = -(-L // n_shards)  # ceil: per-shard landmark capacity
 

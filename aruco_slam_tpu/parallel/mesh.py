@@ -1,9 +1,9 @@
 """Device-mesh helpers (L6).
 
 The reference's 'distributed backend' is a single-host ROS topic bus
-(SURVEY.md section 5.8); here the transport is the TPU interconnect: a
-``jax.sharding.Mesh`` over the slice, XLA collectives over ICI/DCN via
-``shard_map``. Multi-host initialization goes through
+(SURVEY.md section 5.8); here the transport is the device interconnect:
+a 1-D ``jax.sharding.Mesh`` over the GPUs, XLA collectives (NCCL over
+NVLink) via ``shard_map``. Multi-host initialization goes through
 ``jax.distributed.initialize`` (no-op on a single process).
 """
 

@@ -55,8 +55,6 @@ class SlamSystem:
         from aruco_slam_tpu.runner import frame_update_for
 
         self._predict = jax.jit(ekf.predict, static_argnums=2)
-        # Streaming is the single-stream shape: the Pallas VMEM-resident
-        # frame update wins 3x there on TPU (EkfConfig.update_backend).
         self._update = jax.jit(
             frame_update_for(self.config, batched=False), static_argnums=2
         )

@@ -19,7 +19,12 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
-import yaml
+UPDATE_BACKENDS = ("auto", "xla", "triton")
+
+
+class ConfigError(ValueError):
+    pass
+
 
 ARUCO_ORIGINAL_DICT_ID = 16  # cv::aruco::DICT_ARUCO_ORIGINAL (parameters.yaml:16)
 
@@ -102,16 +107,24 @@ class EkfConfig:
     # of one per observation. Requires at most one observation per marker id
     # per frame (the front-end guarantees this; disable for exotic inputs).
     fused_update: bool = False
-    # Frame-update backend: "auto" picks the Pallas VMEM-resident kernel
-    # (ops/kernels/ekf_update.py) for SINGLE-STREAM replay/streaming on TPU
-    # — 3x faster than the XLA scan at batch 1 (293 vs 887 us/frame,
-    # benchmarks/ekf_kernel_probe.py: one HBM read+write of the state per
-    # frame instead of ~40 ops/observation) — and the XLA scan for batched
-    # replay, where XLA's batch vectorization wins (19 vs 42 us/frame at
-    # batch 64; the kernel grid serializes lanes on the one Mosaic core).
-    # "xla" / "pallas" force a backend (bit-identical results either way —
-    # tests/test_pallas_kernels.py).
+    # Frame-step backend of batched replay (runner.use_frame_kernel):
+    # "auto" runs the Triton frame kernels (ops/kernels/) on a GPU when the
+    # map fits the kernel's covariance tile and the vmapped XLA scan
+    # otherwise; "triton" and "xla" force one. Results agree to float32
+    # tolerance (tests/test_pallas_kernels.py).
     update_backend: str = "auto"
+
+    def __post_init__(self):
+        if self.update_backend not in UPDATE_BACKENDS:
+            raise ConfigError(
+                f"update_backend={self.update_backend!r}; expected one of "
+                f"{UPDATE_BACKENDS}"
+            )
+        if self.fused_update and self.update_backend == "triton":
+            raise ConfigError(
+                "fused_update=True is an XLA update; it cannot run with "
+                "update_backend='triton'"
+            )
 
 
 @dataclass(frozen=True)
@@ -132,10 +145,6 @@ class SlamConfig:
     t_r2c_x: float = 0.0
     t_r2c_y: float = 0.0
     map_file: str | None = None
-
-
-class ConfigError(ValueError):
-    pass
 
 
 def _build(cls, data: Mapping[str, Any], path: str):
@@ -194,6 +203,8 @@ def load_config(path_or_dict) -> SlamConfig:
     if isinstance(path_or_dict, Mapping):
         raw = dict(path_or_dict)
     else:
+        import yaml  # optional dependency, needed only for YAML files
+
         with open(path_or_dict) as f:
             raw = yaml.safe_load(f) or {}
         if not isinstance(raw, Mapping):

@@ -8,8 +8,7 @@ bus (SURVEY.md section 5.5) with:
   innovation statistics) written once per replay from the device arrays —
   no host sync inside the hot loop;
 - ``trace`` — a context manager around ``jax.profiler`` for capturing
-  device traces to TensorBoard format;
-- roofline notes per kernel live in docs/PERFORMANCE.md.
+  device traces to TensorBoard format.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Does denser cell sampling recover the blur+noise miss without regression?"""
 import sys, dataclasses
-sys.path.insert(0, "/root/repo"); sys.path.insert(0, "/root/repo/benchmarks")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))); sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np, jax
 jax.config.update("jax_platforms", "cpu")
 import detector_parity_sweep as sw

@@ -1,6 +1,6 @@
 """Probe: where the CG iteration body spends its non-matvec time at the
-config-5 shape, and why a 5-GN-iter solve costs ~5.6 ms/GN more than a
-1-GN-iter solve (42.0 vs 36.4 ms/GN measured, ba_stage_inventory.py).
+config-5 shape, and why a 5-GN-iter solve costs more per GN than a
+1-GN-iter solve (ba_stage_inventory.py).
 
 Legs:
   pcg-full        _pcg as shipped (block-Jacobi precond), cg=50
@@ -13,16 +13,9 @@ import os
 import sys
 import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache"
-)
 import jax
 
-sys.path.insert(0, "/root/repo")
-jax.config.update(
-    "jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"]
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 import numpy as np
 

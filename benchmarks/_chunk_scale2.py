@@ -1,9 +1,6 @@
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax.numpy as jnp
 from aruco_slam_tpu import runner
 from aruco_slam_tpu.ops.camera import CameraIntrinsics

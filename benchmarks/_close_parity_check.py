@@ -1,6 +1,7 @@
 """Full parity-sweep comparison: default vs fg-closing, identical frames."""
 import sys
-sys.path.insert(0, "/root/repo"); sys.path.insert(0, "/root/repo/benchmarks")
+import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))); sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np, jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp

@@ -1,9 +1,9 @@
 """Evidence for DetectorConfig.decode_sampling="nearest": re-runs the full
 adverse-conditions sweep (same scenes/conditions as detector_parity_sweep)
 with bilinear vs nearest decode sampling and diffs the detected-id sets
-per (scene, condition). TPU gathers execute ~serially, so nearest (1 tap)
-is ~4x cheaper in the decode stage than bilinear (4 taps) — this checks
-the accuracy side of that trade on CPU."""
+per (scene, condition). Nearest (1 tap) gathers a quarter of what
+bilinear (4 taps) does in the decode stage — this checks the accuracy
+side of that trade on CPU."""
 import os
 import sys
 

@@ -1,8 +1,8 @@
 """Evidence for DetectorConfig.decode_upsample: re-runs the adverse-
 conditions sweep with exact-bilinear decode (f=1) vs quantized-position
 decode (f=2, f=4) and diffs the detected-id sets per (scene, condition).
-The f-x path reads ONE gathered scalar per sample point instead of 4
-(PERFORMANCE.md log item 17), at the cost of quantizing sample positions
+The f-x path reads ONE gathered scalar per sample point instead of 4,
+at the cost of quantizing sample positions
 to the 1/f pixel grid."""
 import os
 import sys

@@ -1,8 +1,6 @@
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax, jax.numpy as jnp, numpy as np
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from aruco_slam_tpu.ops import detector as det
 from aruco_slam_tpu.ops.camera import CameraIntrinsics
 from aruco_slam_tpu.sim import synthetic
@@ -21,9 +19,9 @@ def timeit(fn, *a, reps=7):
 f0 = jax.jit(lambda x: x.sum())
 t = timeit(f0, imgs)
 print(f"dispatch floor: {1e3*t:.2f} ms/call = {1e3*t/32:.3f} ms/frame @B32")
-# thr only (XLA), thr+ccl megakernel, ccl kernel alone at B=32
+# thr only, thr + XLA CCL at B=32
 CFG = det.DetectorConfig()
 f_thr = jax.jit(jax.vmap(lambda im: det.adaptive_threshold(im, CFG.adaptive_radius, CFG.adaptive_C, CFG.mean_stride)))
 t = timeit(f_thr, imgs); print(f"thr xla s4    : {1e3*t/32:.3f} ms/frame")
 f_tl = jax.jit(jax.vmap(lambda im: det._threshold_and_label(im, CFG.adaptive_radius, CFG)[1].sum()))
-t = timeit(f_tl, imgs); print(f"thr+ccl kernel: {1e3*t/32:.3f} ms/frame")
+t = timeit(f_tl, imgs); print(f"thr+ccl xla   : {1e3*t/32:.3f} ms/frame")

@@ -1,14 +1,9 @@
-"""Round-5: re-test the round-1 'detection inside lax.scan/map is ~3000x
-slower' pathology with the CURRENT detector (fused Pallas threshold+CCL
-megakernel, sort-based stats). If lax.map over chunks now runs at vmap
-speed, the whole 1920-frame stack detects in ONE dispatch and the
-~0.5 ms/frame per-dispatch overhead of the host chunk loop disappears."""
+"""Probe: is detection inside lax.map over chunks as fast as the vmapped
+detector? If so, the whole 1920-frame stack detects in ONE dispatch and
+the per-dispatch overhead of the host chunk loop disappears."""
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax.numpy as jnp
 from aruco_slam_tpu import runner
 from aruco_slam_tpu.ops.camera import CameraIntrinsics

@@ -1,21 +1,15 @@
 """Probe: does materializing the linearization dict behind an
 optimization_barrier before the CG loop recover the standalone-pcg CG
-iteration cost (474 us/iter as jit inputs vs ~570 us/iter in-program)?"""
+iteration cost (cheaper with the lin dict as jit inputs than built
+in-program)?"""
 
 import os
 import sys
 import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache"
-)
 import jax
 
-sys.path.insert(0, "/root/repo")
-jax.config.update(
-    "jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"]
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 import numpy as np
 

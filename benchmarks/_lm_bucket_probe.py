@@ -1,7 +1,7 @@
 """Probe: degree-class bucketed landmark reduction vs the sorted
 segmented scan (round 3, VERDICT item 3).
 
-The scan form is ~1 ms/call at 10k/5k regardless of operand width or
+The scan form costs the same at 10k/5k whatever the operand width or
 layout (benchmarks/_segscan_probe.py) — op-count-bound (~17 associative
 -scan passes plus flag logic). The bucketed form groups landmarks by
 ceil-pow2 observation degree, so each bucket is one gather + one dense
@@ -10,12 +10,9 @@ gather restores landmark order.
 """
 import os, sys, time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax
 
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 import numpy as np
 
@@ -103,7 +100,7 @@ def null_prog(x):
 
 def timeit(prog, x0):
     r = prog(x0)
-    np.asarray(jax.tree.leaves(r)[0]).ravel()[:1]  # true first-exec barrier
+    np.asarray(jax.tree.leaves(r)[0]).ravel()[:1]  # sync
     ts = []
     for _ in range(5):
         t0 = time.perf_counter()

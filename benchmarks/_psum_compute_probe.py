@@ -1,5 +1,6 @@
 """Psum chain WITH compute between collectives: is the per-psum boundary
-cost payload/latency (microbench ~0.3ms) or rendezvous-under-compute?"""
+cost payload/latency (as a bare psum microbenchmark sees it) or
+rendezvous-under-compute?"""
 import os, subprocess, sys, time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 

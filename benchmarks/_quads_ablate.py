@@ -1,9 +1,7 @@
 """Intra-quads ablation: stats+topk vs window takes vs corner chain."""
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax, jax.numpy as jnp, numpy as np
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from aruco_slam_tpu.ops import detector as det
 from aruco_slam_tpu.ops.camera import CameraIntrinsics
 from aruco_slam_tpu.sim import synthetic
@@ -55,7 +53,7 @@ def stage(upto):
         max_ds = jnp.int32(cfg.max_component_fraction * (n // (st * st)))
         ok = (counts >= min_ds) & (counts <= max_ds)
         score = jnp.where(ok, counts, 0)
-        svals, cells_k = jax.lax.approx_max_k(score.astype(jnp.float32), cfg.max_candidates, recall_target=0.99)
+        svals, cells_k = jax.lax.top_k(score.astype(jnp.float32), cfg.max_candidates)
         if upto == "topk":
             return svals.sum() + cells_k.sum()
         roots = cells_k.astype(jnp.int32)

@@ -2,11 +2,8 @@
 adaptive_radii=(3,7,11) sweep vs the shipped default (1280-frame stack,
 chunk 16 — the honest measurement shape, CLAUDE.md gotcha 11)."""
 import os, sys, time, dataclasses
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax.numpy as jnp
 from aruco_slam_tpu import runner
 from aruco_slam_tpu.ops.camera import CameraIntrinsics

@@ -2,15 +2,14 @@
 threshold sweep (adaptive_radii=(3, 7, 11), union + id-dedup through the
 existing machinery) against the shipped single-radius-7 + closing-union
 default, across the 10 adverse conditions. Recall deltas decide whether
-the sweep ships (cost side measured on TPU by _union_fused_probe.py with
-PROBE_RADII=1).
+the sweep ships.
 """
 import dataclasses
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/benchmarks")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np
 import jax
 

@@ -1,10 +1,8 @@
 """Isolate the landmark segmented-scan cost at 10k/5k shapes: AoS [N,F]
 scan vs lanes-internal [F,N] scan vs combined widths."""
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp, numpy as np
 from aruco_slam_tpu.models import ba, graph_builder
 

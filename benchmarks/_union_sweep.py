@@ -1,6 +1,7 @@
 """Score the parity sweep with closing_union False vs True (same frames)."""
 import sys, dataclasses
-sys.path.insert(0, "/root/repo"); sys.path.insert(0, "/root/repo/benchmarks")
+import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))); sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np, jax
 jax.config.update("jax_platforms", "cpu")
 import detector_parity_sweep as sw

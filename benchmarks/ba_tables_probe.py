@@ -1,18 +1,15 @@
-"""Gather-table BA vs segment_sum BA: correctness + TPU timing at the
+"""Gather-table BA vs segment_sum BA: correctness + device timing at the
 config-4 (1k/500) and config-5 (10k/5k) shapes."""
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from aruco_slam_tpu.models import ba, graph_builder
 
@@ -28,7 +25,7 @@ def bench(n_kf, n_lm, iters=5, cg=50, reps=3):
 
     def timeit(fn):
         out = fn(pj)
-        np.asarray(out[0])  # true first-exec barrier
+        np.asarray(out[0])  # sync
         best = float("inf")
         for _ in range(reps):
             t0 = time.perf_counter()

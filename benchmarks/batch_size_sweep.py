@@ -1,11 +1,7 @@
-"""Corner-level replay throughput vs batch size (the lanes-trailing
-kernels use batch as the lane dimension: 64 fills half the 128 lanes)."""
+"""Corner-level replay throughput vs batch size."""
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax, jax.numpy as jnp, numpy as np
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from aruco_slam_tpu import runner
 from aruco_slam_tpu.ops.camera import CameraIntrinsics
 from aruco_slam_tpu.sim import synthetic
@@ -15,8 +11,6 @@ cam = CameraIntrinsics.create(600.0, 600.0, 320.0, 240.0)
 cfg = SlamConfig(ekf=EkfConfig(max_landmarks=32, max_observations_per_frame=16))
 seqs = [synthetic.generate_sequence(synthetic.SimParams(duration=60.0, seed=s),
                                     level="corners", camera=cam) for s in range(8)]
-# Measured 2026-08-18 (TPU v5 lite): 64 -> 122k, 96 -> 146k, 128 -> 175k,
-# 192 -> 162k (1.5 lane tiles — misaligned), 256 -> 182k fps/chip.
 for batch in (64, 96, 128, 192, 256):
     try:
         data = runner.build_batch_data(seqs, batch, "corners")

@@ -9,7 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 from scipy import ndimage
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from aruco_slam_tpu.ops import detector as det
 from aruco_slam_tpu.ops.camera import CameraIntrinsics
 from aruco_slam_tpu.sim import synthetic

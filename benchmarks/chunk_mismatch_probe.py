@@ -3,13 +3,11 @@ detect_chunk_probe: how many frames differ and how."""
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/aruco_slam_tpu_jax_cache")
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from aruco_slam_tpu import runner
 from aruco_slam_tpu.ops import detector as det
 from aruco_slam_tpu.ops.camera import CameraIntrinsics

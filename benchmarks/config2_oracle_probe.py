@@ -1,12 +1,14 @@
 """Is the config-2 0.21 m floor solver-side or posterior-side?
 Dense float64 exact GN from the EKF init + SE(2) alignment analysis."""
+import os
 import pickle
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 from test_ba import dense_gn_step
 import jax
 jax.config.update("jax_platforms", "cpu")

@@ -9,7 +9,8 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from aruco_slam_tpu import runner
 from aruco_slam_tpu.models import ekf as ekf_mod, graph_builder
 from aruco_slam_tpu.sim import synthetic

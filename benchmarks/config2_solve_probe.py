@@ -8,7 +8,8 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from aruco_slam_tpu.models import ba
 
 with open("/tmp/config2_problem.pkl", "rb") as f:

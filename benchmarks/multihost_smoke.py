@@ -2,8 +2,8 @@
 8-way mesh, distributed BA with cross-process collectives.
 
 Validates the actual multi-host path (jax.distributed.initialize +
-shard_map psum over the process boundary) that a real TPU pod slice would
-use — no TPU pod required. Run:
+shard_map psum over the process boundary) that a multi-host GPU cluster
+would use — no cluster required. Run:
 
     python benchmarks/multihost_smoke.py            # launches both workers
     # (workers re-invoke this file with WORKER=i)

@@ -16,7 +16,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from aruco_slam_tpu.sim import synthetic
 

@@ -1,8 +1,8 @@
 """Scaling-efficiency measurement for the distributed BA backend
 (BASELINE.md: >=80% scaling efficiency at N>=2 hosts).
 
-Real multi-chip hardware is not available in this environment, so this
-measures what CAN be measured here, explicitly labeled:
+It runs on CPU processes only (the distributed path on GPUs is checked
+by ``chip_smoke.py --four``) and measures, explicitly labeled:
 
 1. **Work balance** of ``dist_ba.partition_problem`` — the static property
    that determines scaling on real hardware (a shard that owns k times the
@@ -19,18 +19,15 @@ measures what CAN be measured here, explicitly labeled:
    the ideal distributed runtime adds nothing when the work is already
    sharded.
 
-   Fairness control (measured, round 4): leg A does NOT speed up when
-   given all four cores instead of two (0.230 s -> 0.204 s pinned at the
-   10k/5k shape — the solve is dispatch-bound, a device thread cannot use
-   extra cores), so leg B's second core serves only its transport, not
-   extra compute.
+   Fairness control: leg A should not speed up much when given all four
+   cores instead of two (the solve is dispatch-bound, a device thread
+   cannot use extra cores), so leg B's second core serves only its
+   transport, not extra compute.
 
-   Round-3 methodology bugs this replaces (ADVICE r3 item 3): (a)
-   ``solve_dist`` rebuilt its jit closure per call, so every "warm" timing
-   was ~90% retrace+recompile — the fixed per-call compile swamped the
-   collective cost and made per-psum overhead look like ~24 ms; the direct
-   in-context measurement after the cache fix is ~0.4 ms. (b) the 2x4
-   unpinned topology conflated per-psum cost with host-core
+   Methodology bugs this replaces: (a) ``solve_dist`` rebuilt its jit
+   closure per call, so every "warm" timing was mostly retrace+recompile,
+   which swamped the collective cost and inflated the per-psum overhead;
+   (b) the 2x4 unpinned topology conflated per-psum cost with host-core
    oversubscription; a legacy 2x4 point is still recorded for continuity.
 
 Writes a ``scaling`` section into benchmarks/results.json.
@@ -184,7 +181,8 @@ def efficiency_curve():
 
     Hardware-independent argument: efficiency = c / (c + ovh) where ovh is
     the per-collective cost of crossing the process boundary (gloo TCP
-    loopback here; ICI on a pod is ~100x cheaper) and c = t1 / n_psum is
+    loopback here; a device interconnect such as NVLink is far cheaper) and
+    c = t1 / n_psum is
     the compute-per-collective. Efficiency >= 0.8 whenever c >= 4 * ovh,
     regardless of transport."""
     sweep = [
@@ -409,9 +407,8 @@ def main():
     # Where does >=80% hold? eff = c / (c + ovh): the solve's
     # compute-per-collective c (measured, 1-process leg) vs the DIRECTLY
     # measured per-psum boundary overhead at that payload (gloo TCP
-    # loopback transport; on a TPU pod the same [K, 3] psum rides ICI at
-    # ~us latency, so c_80 = 4 * ovh_ICI is orders of magnitude below any
-    # real BA problem's compute-per-collective).
+    # loopback transport; the same [K, 3] psum over NVLink is not
+    # measured yet).
     thresh = {}
     for k, row in result["psum_boundary_cost"].items():
         ovh_ms = row["boundary_overhead_us_per_psum"] / 1e3

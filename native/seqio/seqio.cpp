@@ -1,6 +1,6 @@
 // seqio — native sequence-container I/O for aruco_slam_tpu (L3 runtime).
 //
-// TPU-native counterpart of the reference's native data path (cv_bridge /
+// Native counterpart of the reference's native data path (cv_bridge /
 // image_transport C++ image plumbing, reference src/aruco_slam_node.cpp:93-101):
 // a zero-copy mmap'd binary container for recorded grayscale frame streams
 // plus a multithreaded prefetcher that keeps the host->device feed ahead of

@@ -114,8 +114,8 @@ def test_ba_converges_to_ground_truth():
 
 
 def test_unrolled_gn_loop_matches_scan():
-    """``unroll=True`` (the throughput-bench path: the scan boundary costs
-    ~1.5 ms/GN at the config-5 shape) must produce the same solution and
+    """``unroll=True`` (the throughput-bench path: no scan boundary between
+    GN iterations) must produce the same solution and
     cost history as the default scan, up to f32 fusion-order rounding."""
     problem, _, _ = graph_builder.synthetic_ba_problem(
         n_keyframes=60, n_landmarks=25, obs_per_kf=4, init_noise=0.2, seed=5
@@ -288,7 +288,7 @@ def _rotate_about_anchor(poses, lms, phi):
 
 def test_gauge_deflation_recovers_flat_mode():
     """Init displaced along the global-rotation gauge mode: block-Jacobi CG
-    crawls (docs/PERFORMANCE.md 'BA convergence note'), the deflated solve
+    crawls along this near-flat mode, the deflated solve
     must recover it in a handful of iterations."""
     problem, true_poses, true_lms = graph_builder.synthetic_ba_problem(
         n_keyframes=200, n_landmarks=60, obs_per_kf=4, obs_sigma=0.02,

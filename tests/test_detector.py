@@ -344,3 +344,83 @@ def test_closed_budget_compaction_preserves_detections():
     ids_b = set(np.asarray(budget.ids)[np.asarray(budget.valid)].tolist())
     ids_f = set(np.asarray(full.ids)[np.asarray(full.valid)].tolist())
     assert ids_b == ids_f
+
+
+def test_seeded_closed_ccl_converges_on_markers():
+    """The seeded 2-round closed labeling must equal the from-scratch
+    fixed point on a rendered marker scene (the production case the trip
+    count was chosen for; random blobs can legitimately need more)."""
+    cam = CAM
+    arena = synthetic.make_arena(n_markers=20)
+    stack = renderer.build_marker_stack(arena)
+    cam_pos, R_wc = renderer.camera_pose_from_robot(
+        jnp.asarray((2.55, -2.0, 1.2), jnp.float32)
+    )
+    img = renderer.render_frame(cam_pos, R_wc, stack, cam)
+    cfg = detector.DetectorConfig()
+    fg = detector.adaptive_threshold(
+        img, cfg.adaptive_radius, cfg.adaptive_C, cfg.mean_stride
+    )
+    lab = detector.label_components(fg, cfg.ccl_rounds)
+    fgc = detector.binary_close3(fg)
+    seeded = detector.label_components(
+        fgc, cfg.closed_ccl_rounds, init=lab.reshape(fg.shape)
+    )
+    full = detector.label_components(fgc, 8)  # fixed point reference
+    assert jnp.array_equal(seeded, full)
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (720, 1280), (1080, 1920)])
+def test_ccl_matches_scipy_oracle_bucket_shapes(shape):
+    """label_components at each stock shape bucket (DetectorConfig.
+    shape_buckets) agrees with scipy.ndimage 8-connected labeling on a
+    random blob mask: one label per component, distinct across, and
+    background keeping its own flat index."""
+    ndimage = pytest.importorskip("scipy.ndimage")
+    rng = np.random.default_rng(shape[0])
+    fg = ndimage.binary_dilation(rng.random(shape) > 0.9993, iterations=5)
+    labels = np.asarray(
+        jax.jit(lambda m: detector.label_components(m, 8))(jnp.asarray(fg))
+    ).reshape(shape)
+    ref, nref = ndimage.label(fg, structure=np.ones((3, 3), bool))
+    assert nref > 10
+    per_comp = [np.unique(labels[ref == c]) for c in range(1, nref + 1)]
+    assert all(len(v) == 1 for v in per_comp)
+    assert len({int(v[0]) for v in per_comp}) == nref
+    flat_idx = np.arange(fg.size).reshape(shape)
+    np.testing.assert_array_equal(labels[~fg], flat_idx[~fg])
+
+
+def _close3_oracle(fg):
+    """3x3 closing with the detector's border convention: outside the
+    image is background for the dilation and foreground for the erosion."""
+    from scipy import ndimage
+
+    st = np.ones((3, 3), bool)
+    dil = ndimage.binary_dilation(fg, structure=st, border_value=0)
+    return ndimage.binary_erosion(dil, structure=st, border_value=1)
+
+
+@pytest.mark.parametrize(
+    "case", ["corner_pixel", "edge_line", "gap_at_border", "random"]
+)
+def test_binary_close3_border_cases(case):
+    """binary_close3 at the frame border: content touching the edge is
+    neither grown past it nor eaten by it, and a 1-px gap next to the
+    border is bridged like one in the interior."""
+    pytest.importorskip("scipy.ndimage")
+    fg = np.zeros((12, 16), bool)
+    if case == "corner_pixel":
+        fg[0, 0] = True
+    elif case == "edge_line":
+        fg[:, 0] = True
+        fg[5, :] = True
+    elif case == "gap_at_border":
+        fg[0, :7] = True
+        fg[0, 8:] = True
+        fg[1, :] = True
+    else:
+        fg = np.random.default_rng(3).random((12, 16)) < 0.45
+    got = np.asarray(detector.binary_close3(jnp.asarray(fg)))
+    np.testing.assert_array_equal(got, _close3_oracle(fg))
+    assert (got | ~fg).all()  # closing never removes foreground

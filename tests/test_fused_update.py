@@ -172,56 +172,77 @@ def test_fused_multi_frame_replay_close():
 
 
 def test_frame_update_for_auto_rule(monkeypatch):
-    """Pin the backend auto-selection boundary (VERDICT round 2): Pallas
-    kernel at batch 1 on TPU, XLA scan under vmap, fused_update takes
-    precedence over everything, explicit backends honored."""
+    """Pin the backend policy measured on the GPU
+    (benchmarks/gpu_kernel_policy.py): while the map fits the kernel's
+    128 x 128 covariance tile, batched replay and the single stream take
+    the Triton frame kernel; past it, batched replay takes the vmapped
+    XLA scan and the single stream the fused block-LDL update. On the CPU
+    everything takes the XLA scan. fused_update takes precedence, explicit
+    backends are honored, and vmapped lanes always use the scan."""
     from aruco_slam_tpu import runner
     from aruco_slam_tpu.models import ekf
+    from aruco_slam_tpu.ops.kernels import ekf_update_batched as kb
 
-    def cfg(**kw):
-        return SlamConfig(ekf=EkfConfig(max_landmarks=8, **kw))
+    def cfg(max_landmarks=8, **kw):
+        return SlamConfig(ekf=EkfConfig(max_landmarks=max_landmarks, **kw))
 
-    # fused_update wins regardless of backend/batched
-    assert runner.frame_update_for(cfg(fused_update=True), False) is ekf.update_fused
-    assert runner.frame_update_for(cfg(fused_update=True), True) is ekf.update_fused
+    limit = runner.FRAME_KERNEL_MAX_LANDMARKS
+    for backend in ("gpu", "cpu"):
+        monkeypatch.setattr(runner.jax, "default_backend", lambda: backend)
+        on_gpu = backend == "gpu"
+        # fused_update wins regardless of backend/batched
+        assert runner.frame_update_for(cfg(fused_update=True), False) is ekf.update_fused
+        assert runner.frame_update_for(cfg(fused_update=True), True) is ekf.update_fused
+        assert not runner.use_frame_kernel(cfg(fused_update=True))
+        # vmapped lanes of the XLA replay: the scan
+        assert runner.frame_update_for(cfg(), True) is ekf.update
+        # auto: the kernel on a GPU up to the tile limit
+        assert runner.use_frame_kernel(cfg()) is on_gpu
+        assert runner.use_frame_kernel(cfg(limit)) is on_gpu
+        assert not runner.use_frame_kernel(cfg(limit + 1))
+        single = runner.frame_update_for(cfg(limit), False)
+        assert single is (kb.frame_update if on_gpu else ekf.update)
+        past = runner.frame_update_for(cfg(limit + 1), False)
+        assert past is (ekf.update_fused if on_gpu else ekf.update)
+        # explicit backends override the heuristic
+        assert runner.use_frame_kernel(cfg(update_backend="triton"))
+        assert runner.frame_update_for(cfg(update_backend="triton"), False) is kb.frame_update
+        assert not runner.use_frame_kernel(cfg(update_backend="xla"))
+        assert runner.frame_update_for(cfg(update_backend="xla"), False) is ekf.update
+        assert runner.frame_update_for(cfg(limit + 1, update_backend="xla"), False) is ekf.update
+        # explicit triton past the tile: a clear error, not a compile crash
+        with pytest.raises(ValueError, match="tile"):
+            runner.use_frame_kernel(cfg(limit + 1, update_backend="triton"))
+        # one decision point: the single stream takes the kernel exactly
+        # where batched replay does
+        for kw in ({}, {"fused_update": True}, {"update_backend": "xla"},
+                   {"update_backend": "triton"}):
+            for lm in (limit, limit + 1):
+                if lm > limit and kw.get("update_backend") == "triton":
+                    continue
+                c = cfg(lm, **kw)
+                single = runner.frame_update_for(c, False)
+                assert (single is kb.frame_update) is runner.use_frame_kernel(c)
 
-    # auto on CPU -> XLA scan both ways
-    monkeypatch.setattr(runner.jax, "default_backend", lambda: "cpu")
-    assert runner.frame_update_for(cfg(), False) is ekf.update
-    assert runner.frame_update_for(cfg(), True) is ekf.update
 
-    # auto on TPU -> pallas at batch 1, XLA scan under vmap
-    monkeypatch.setattr(runner.jax, "default_backend", lambda: "tpu")
-    from aruco_slam_tpu.ops.kernels import ekf_update as kern
+def test_fused_update_rejects_triton_backend():
+    """fused_update is an XLA update: asking for it together with the
+    Triton backend is a config error, not a silent choice of one."""
+    from aruco_slam_tpu.utils.config import ConfigError, load_config
 
-    assert runner.frame_update_for(cfg(), False) is kern.frame_update
-    assert runner.frame_update_for(cfg(), True) is ekf.update
+    with pytest.raises(ConfigError, match="fused_update"):
+        EkfConfig(fused_update=True, update_backend="triton")
+    with pytest.raises(ConfigError, match="fused_update"):
+        load_config({"ekf": {"fused_update": True, "update_backend": "triton"}})
+    assert EkfConfig(fused_update=True, update_backend="xla").fused_update
 
-    # auto above the kernel's compile-capacity ceiling -> fused block-LDL
-    # single-stream (the measured 2.2x winner at 512 landmarks,
-    # docs/PERFORMANCE.md item 7; Mosaic crashes at 256+,
-    # benchmarks/_ekf_kernel_capacity.py), XLA scan under vmap
-    big = SlamConfig(ekf=EkfConfig(max_landmarks=256))
-    assert runner.frame_update_for(big, False) is ekf.update_fused
-    assert runner.frame_update_for(big, True) is ekf.update
-    # boundary: exactly at the ceiling the kernel still compiles -> pallas
-    edge = SlamConfig(
-        ekf=EkfConfig(max_landmarks=runner._PALLAS_EKF_MAX_LANDMARKS)
-    )
-    assert runner.frame_update_for(edge, False) is kern.frame_update
 
-    # explicit backend overrides the heuristic (even under vmap / on CPU)
-    assert runner.frame_update_for(cfg(update_backend="pallas"), True) is kern.frame_update
-    monkeypatch.setattr(runner.jax, "default_backend", lambda: "cpu")
-    assert runner.frame_update_for(cfg(update_backend="pallas"), False) is kern.frame_update
-    assert runner.frame_update_for(cfg(update_backend="xla"), False) is ekf.update
+@pytest.mark.parametrize("backend", ["pallas", "mosaic", "", "XLA"])
+def test_unknown_update_backend_raises(backend):
+    """update_backend accepts only "auto", "xla" and "triton"."""
+    from aruco_slam_tpu.utils.config import ConfigError, load_config
 
-    # explicit pallas past the compile ceiling: a clear error, not an
-    # opaque Mosaic tpu_compile_helper crash (ADVICE round 3 item 1)
-    import pytest
-
-    with pytest.raises(ValueError, match="ceiling"):
-        runner.frame_update_for(
-            SlamConfig(ekf=EkfConfig(max_landmarks=256, update_backend="pallas")),
-            False,
-        )
+    with pytest.raises(ConfigError, match="update_backend"):
+        EkfConfig(update_backend=backend)
+    with pytest.raises(ConfigError, match="update_backend"):
+        load_config({"ekf": {"update_backend": backend}})

@@ -70,3 +70,44 @@ def test_image_level_close_to_corner_level(image_seq):
     res_cor = runner.evaluate_sequence(image_seq, CFG, camera=CAM, level="corners")
     # image-level ATE should be within a small factor of the ideal-corner ATE
     assert res_img["ate"] < max(3.0 * res_cor["ate"], 0.3), (res_img, res_cor)
+
+
+@pytest.mark.parametrize(
+    "hw,bucket",
+    [((700, 1200), (720, 1280)), ((1000, 1900), (1080, 1920)),
+     ((720, 1280), (720, 1280)), ((1100, 2000), (1104, 2048))],
+)
+def test_pad_to_bucket_and_margin_drop(hw, bucket):
+    """HD frames pad to the smallest enclosing stock bucket (or the
+    (8, 128)-aligned ceiling past them all) by edge replication, and
+    detections reaching into the padded margin are dropped while interior
+    ones survive."""
+    import jax.numpy as jnp
+
+    from aruco_slam_tpu.ops.detector import DetectorConfig, Detections
+
+    h, w = hw
+    assert runner._bucket_shape(h, w, DetectorConfig().shape_buckets) == bucket
+    bh, bw = bucket
+    frames = jnp.asarray(np.random.default_rng(0).integers(0, 255, (2, h, w)),
+                         jnp.uint8)
+    padded = np.asarray(runner._pad_to_bucket(frames, bh, bw))
+    assert padded.shape == (2, bh, bw)
+    np.testing.assert_array_equal(padded[:, :h, :w], np.asarray(frames))
+    np.testing.assert_array_equal(padded[:, h:, :w], np.repeat(
+        np.asarray(frames)[:, h - 1:h, :], bh - h, axis=1))
+    np.testing.assert_array_equal(padded[:, :, w:], np.repeat(
+        padded[:, :, w - 1:w], bw - w, axis=2))
+
+    inside = np.array([[10, 10], [60, 10], [60, 60], [10, 60]], np.float32)
+    margin = inside + np.array([w - 40, 0], np.float32)  # crosses x = w
+    corners = np.stack([inside, margin])[None].repeat(2, 0)  # [2, 2, 4, 2]
+    det = Detections(
+        ids=jnp.asarray([[3, 4], [3, 4]], jnp.int32),
+        corners=jnp.asarray(corners),
+        valid=jnp.ones((2, 2), bool),
+    )
+    ids, _, valid = runner._merge_detection_chunks([det], 2, h, w, bh, bw)
+    expect = [[True, (bh, bw) == (h, w)]] * 2
+    np.testing.assert_array_equal(np.asarray(valid), expect)
+    np.testing.assert_array_equal(np.asarray(ids), [[3, 4], [3, 4]])
